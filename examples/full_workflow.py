@@ -1,5 +1,5 @@
 """End-to-end workflow demo: train -> grid -> certify (CROWN + Lipschitz)
--> AutoAttack, on one TPU chip.
+-> AutoAttack, on one accelerator.
 
 Mirrors the reference's four README commands in sequence.  With no dataset
 files present this runs on the deterministic synthetic fallback — the point

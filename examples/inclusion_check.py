@@ -16,7 +16,7 @@ Usage:
       [--attack autoattack_full_standard_512_tmax01.json] \
       [--out inclusion_tmax01.json]
 
-Host-side JSON folding only — safe to run while a TPU job is live.
+Host-side JSON folding only — safe to run while a device job is live.
 """
 import argparse
 import json

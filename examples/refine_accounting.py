@@ -15,7 +15,7 @@ Usage:
       [--out refine_accounting.json]
 
 Pure host-side JSON folding — no device work, safe to run while a
-refinement pass holds the TPU client.
+refinement pass holds the device.
 """
 import argparse
 import json

@@ -18,8 +18,8 @@ abandons an image at the first positive-bound cell.
 
 Resumable: every processed image's verdict is appended to
 ``<out-stem>_stream.jsonl`` as it completes; re-running the same command
-skips those images (the relay's multi-hour outages make mid-run kills
-routine — see CLAUDE.md).  ``seconds`` in the final JSON is this process's
+skips those images, so a killed run loses at most one image's work.
+``seconds`` in the final JSON is this process's
 wall time; per-image times in ``stats`` cover the whole run.
 """
 import argparse
@@ -50,9 +50,9 @@ def main():
     ap.add_argument("--alpha-iters", type=int, default=0,
                     help="alpha-CROWN slope-optimization iterations in the "
                     "BaB box evaluator (0 = plain CROWN). MEASURED: DOES "
-                    "NOT PAY on this workload — 0 images recovered at ~11x "
-                    "cost per box (274K vs 3.07M cells/s, "
-                    "run_data/certified_full/ALPHA_CROWN.json); keep 0 "
+                    "NOT PAY on this workload — 0 images recovered at a "
+                    "several-fold cost per box "
+                    "(run_data/certified_full/ALPHA_CROWN.json); keep 0 "
                     "unless re-measuring on a different model")
     ap.add_argument("--lips-box", action="store_true",
                     help="evaluate every cell/box under min(CROWN bound, "
@@ -62,8 +62,9 @@ def main():
                     "images (verify/refine.py _kernels docstring)")
     ap.add_argument("--device-cap", type=int, default=1 << 25,
                     help="device-resident BaB frontier capacity (rows); "
-                    "2^25 is the v5e HBM ceiling for the fused round "
-                    "program — larger frontiers are host-partitioned "
+                    "see verify/refine.py refine_uncertified for the "
+                    "fused round's memory at 2^25 — larger frontiers are "
+                    "host-partitioned "
                     "into independent sub-frontiers automatically")
     ap.add_argument("--image-seconds", type=float, default=None,
                     help="per-image wall-clock cap (gave_up=time_budget); "
@@ -133,7 +134,7 @@ def main():
     base_certified = int(base_mask.sum())
 
     # resume: every processed image's verdict is streamed to a JSONL sidecar
-    # so a relay outage mid-run loses at most one image's work.  Budget
+    # so an interrupted run loses at most one image's work.  Budget
     # params are stamped into every record: a certified verdict is final
     # (sound under ANY budget) and always skipped, but a gave-up verdict is
     # only skipped when this run's budgets match the record's — re-running

@@ -1,4 +1,4 @@
-"""fiode_tpu — a TPU-native framework for certified forward invariance in Neural ODEs.
+"""fiode_tpu — a JAX framework for certified forward invariance in Neural ODEs.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capability surface of FI-ODE
 ("Certified and Robust Forward Invariance in Neural ODEs", arXiv 2210.16940;
@@ -21,7 +21,7 @@ attacks  : PGD (L2/Linf), APGD-CE/APGD-T/FAB/Square (AutoAttack suite).
 control  : Segway safe-controller workload — analytic dynamics, LQR fit,
            barrier training, CROWN certification, closed-loop simulation.
 parallel : mesh/sharding helpers for data-parallel training and sharded
-           verification over TPU slices.
+           verification over the cards of one host.
 utils    : config system, checkpointing, metric logging, simplex plotting.
 """
 

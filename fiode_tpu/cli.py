@@ -61,10 +61,9 @@ def main(argv=None):
                     "(full optimizer/PRNG state, written every eval)")
     sp.add_argument("--multihost", action="store_true",
                     help="initialize the JAX distributed runtime before "
-                    "training (run the SAME command on every process; "
-                    "cluster shape auto-detected on TPU pods, else set "
+                    "training (run the SAME command on every process with "
                     "JAX_COORDINATOR_ADDRESS/JAX_NUM_PROCESSES/"
-                    "JAX_PROCESS_ID — see parallel/multihost.py). The "
+                    "JAX_PROCESS_ID set — see parallel/multihost.py). The "
                     "data mesh then spans all hosts' devices; non-zero "
                     "processes log/checkpoint under RUN/proc<i>/")
 
@@ -117,6 +116,9 @@ def main(argv=None):
                     "figures here (reference certify_segway.py:69-139)")
 
     args = p.parse_args(argv)
+    from .utils.device import enable_compile_cache
+
+    enable_compile_cache()
 
     if args.cmd == "train":
         run_dir = args.run_dir

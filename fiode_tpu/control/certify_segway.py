@@ -110,7 +110,8 @@ def certify_segway(
     @jax.jit
     def chunk_ub(cells, valid):
         # certification-grade numerics: float32 matmuls (PARITY.md
-        # "Numerics policy" — TPU bf16 default passes are screening-only)
+        # "Numerics policy" — the backend's reduced-precision default
+        # passes are screening-only)
         with jax.default_matmul_precision("float32"):
             _, ub = vdot_cell_bounds(system, Ws, bs, P, cells, r / 2)
             # exact Vdot at the cell centers: separates "training failed"

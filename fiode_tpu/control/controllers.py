@@ -1,4 +1,4 @@
-"""Controllers: constant, linear (LQR), and neural-network (flax MLP).
+"""Controllers: constant, linear (LQR), and neural-network (ReLU MLP).
 
 Capability rebuild of core.controllers.{ConstantController, LinearController,
 LQRController, NNController} used by the reference
@@ -10,9 +10,11 @@ from __future__ import annotations
 
 import dataclasses
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 import numpy as np
+
+from ..models.layers import Module
 
 __all__ = [
     "ConstantController",
@@ -57,8 +59,10 @@ def lqr_gain(system, goal, Q, R):
     return K.astype(np.float32), P.astype(np.float32)
 
 
-class NNControllerModule(nn.Module):
-    """ReLU MLP controller n_in -> hidden -> n_out.
+@dataclasses.dataclass(frozen=True)
+class NNControllerModule(Module):
+    """ReLU MLP controller n_in -> hidden -> n_out, layers ``Dense_0`` and
+    ``Dense_1`` with (in, out) kernels.
 
     (The reference's NNController(system, 3, 1, 32); ReLU keeps the
     certification path inside the ReLU-CROWN relaxation.)"""
@@ -66,10 +70,20 @@ class NNControllerModule(nn.Module):
     n_out: int = 1
     hidden: int = 32
 
-    @nn.compact
-    def __call__(self, x):
-        x = nn.relu(nn.Dense(self.hidden)(x))
-        return nn.Dense(self.n_out)(x)
+    def init_at(self, keys, x):
+        init = jax.nn.initializers.lecun_normal()
+        p = {}
+        for name, (n_in, n_out) in (("Dense_0", (x.shape[-1], self.hidden)),
+                                    ("Dense_1", (self.hidden, self.n_out))):
+            k = keys.child(name)
+            p[name] = {"kernel": init(k(1), (n_in, n_out)),
+                       "bias": jnp.zeros((n_out,))}
+        return p
+
+    def apply(self, params, x):
+        d0, d1 = params["Dense_0"], params["Dense_1"]
+        x = jax.nn.relu(x @ d0["kernel"] + d0["bias"])
+        return x @ d1["kernel"] + d1["bias"]
 
 
 @dataclasses.dataclass
@@ -80,11 +94,11 @@ class NNController:
     @classmethod
     def create(cls, rng, n_in=3, n_out=1, hidden=32):
         module = NNControllerModule(n_out=n_out, hidden=hidden)
-        params = module.init(rng, jnp.zeros((1, n_in)))["params"]
+        params = module.init(rng, jnp.zeros((1, n_in)))
         return cls(module, params)
 
     def __call__(self, x, t=0.0):
-        return self.module.apply({"params": self.params}, x)
+        return self.module.apply(self.params, x)
 
     def dense_weights(self):
         """[(W1,b1),(W2,b2)] row-major (out,in) for CROWN."""

@@ -1,6 +1,6 @@
 """Segway safe-controller training: LQR fit + barrier adversarial training.
 
-Rebuild of control/train_segway.py:23-216, TPU-first:
+Rebuild of control/train_segway.py:23-216, accelerator-first:
 
   Phase 1 (:53-67):  fit the MLP controller to the LQR law by MSE on states
     in the Lyapunov band 0.1 <= V <= 0.2 — the reference rejection-samples
@@ -87,7 +87,7 @@ def train_segway(cfg: SegwayTrainConfig = SegwayTrainConfig(),
         mask = ((v >= cfg.level_lb) & (v <= cfg.level_ub)).astype(jnp.float32)
 
         def loss_fn(p):
-            out = ctrl.module.apply({"params": p}, eta)
+            out = ctrl.module.apply(p, eta)
             tgt = lqr(eta)
             per = jnp.sum((out - tgt) ** 2, axis=-1)
             return jnp.sum(per * mask) / jnp.maximum(jnp.sum(mask), 1.0)
@@ -130,7 +130,7 @@ def train_segway(cfg: SegwayTrainConfig = SegwayTrainConfig(),
 
     def vdot_model(params, eta):
         lya = LyaQuadratic(params["P"], goal)
-        u = ctrl.module.apply({"params": params["ctrl"]}, eta)
+        u = ctrl.module.apply(params["ctrl"], eta)
         f = system(eta, u)
         return lya.h_dot(eta, f)[:, 0]
 

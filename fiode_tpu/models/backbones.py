@@ -14,16 +14,18 @@ first layer) so attacks and certification operate in pixel space
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
-import flax.linen as nn
+import jax
 
+from ..ops.cayley import groupsort2
 from .layers import (
     CayleyConv,
     CayleyLinear,
-    GroupSort,
     LipsConv,
     LipsLinear,
+    Module,
     Normalize,
 )
 
@@ -32,13 +34,54 @@ __all__ = ["KWLargeBackbone", "PlainCNNBackbone", "make_backbone"]
 
 def _act(name: str):
     if name == "GroupSort":
-        return GroupSort()
+        return lambda x: groupsort2(x, 1 if x.ndim == 4 else -1)
     if name == "ReLU":
-        return lambda x: nn.relu(x)
+        return jax.nn.relu
     raise ValueError(f"unknown activation {name!r}")
 
 
-class KWLargeBackbone(nn.Module):
+def _flatten(x):
+    return x.reshape(x.shape[0], -1)
+
+
+class _Sequential(Module):
+    """A chain of layers.  Parametrised layers are named ``<Type>_<k>`` (the
+    k-th layer of that type), which is the path of their parameters;
+    plain functions (activations, flatten) hold none."""
+
+    def layers(self):
+        raise NotImplementedError
+
+    def _named(self):
+        counts = {}
+        for layer in self.layers():
+            name = None
+            if isinstance(layer, Module):
+                t = type(layer).__name__
+                name = f"{t}_{counts.get(t, 0)}"
+                counts[t] = counts.get(t, 0) + 1
+            yield name, layer
+
+    def init_at(self, keys, x):
+        params = {}
+        for name, layer in self._named():
+            if name is None:
+                x = layer(x)
+                continue
+            p = layer.init_at(keys.child(name), x)
+            if p:
+                params[name] = p
+            x = layer.apply(p, x)
+        return params
+
+    def apply(self, params, x):
+        for name, layer in self._named():
+            x = layer(x) if name is None else layer.apply(params.get(name), x)
+        return x
+
+
+@dataclasses.dataclass(frozen=True)
+class KWLargeBackbone(_Sequential):
     """Cayley orthogonal KWLarge: 4 conv + 3 linear, GroupSort activations.
 
     CIFAR shape: 3x32x32 -> 32c3 -> 32c4/s2 -> 64c3 -> 64c4/s2 -> flatten
@@ -59,26 +102,27 @@ class KWLargeBackbone(nn.Module):
     # an empty stub; reconstructed from the factory name/shape)
     inter: bool = False
 
-    @nn.compact
-    def __call__(self, x):
+    def layers(self):
         a = _act(self.act)
         w = self.width
         c = self.cached
-        x = Normalize(self.mu, self.std)(x)
-        x = a(CayleyConv(32 * w, 3, cached=c)(x))
-        x = a(CayleyConv(32 * w, 4, stride=2, cached=c)(x))
-        x = a(CayleyConv(64 * w, 3, cached=c)(x))
-        x = a(CayleyConv(64 * w, 4, stride=2, cached=c)(x))
-        x = x.reshape(x.shape[0], -1)
-        x = a(CayleyLinear(512 * w, cached=c)(x))
-        x = a(CayleyLinear(512, cached=c)(x))
-        if self.inter:
-            return x
-        x = CayleyLinear(self.out_dim, cached=c)(x)
-        return x
+        out = [
+            Normalize(self.mu, self.std),
+            CayleyConv(32 * w, 3, cached=c), a,
+            CayleyConv(32 * w, 4, stride=2, cached=c), a,
+            CayleyConv(64 * w, 3, cached=c), a,
+            CayleyConv(64 * w, 4, stride=2, cached=c), a,
+            _flatten,
+            CayleyLinear(512 * w, cached=c), a,
+            CayleyLinear(512, cached=c), a,
+        ]
+        if not self.inter:
+            out.append(CayleyLinear(self.out_dim, cached=c))
+        return out
 
 
-class PlainCNNBackbone(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class PlainCNNBackbone(_Sequential):
     """4C3F / 6C2F-style CNNs with Lipschitz-trackable layers.
 
     arch='4C3F':  conv 32c3, 32c4/s2, 64c3, 64c4/s2 -> 512 -> 512 -> out_dim
@@ -91,35 +135,29 @@ class PlainCNNBackbone(nn.Module):
     mu: Sequence[float] = (0.0,)
     std: Sequence[float] = (1.0,)
 
-    @nn.compact
-    def __call__(self, x):
+    def layers(self):
         a = _act(self.act)
-        x = Normalize(self.mu, self.std)(x)
         if self.arch == "4C3F":
-            x = a(LipsConv(32, 3, padding=1)(x))
-            x = a(LipsConv(32, 4, stride=2, padding=1)(x))
-            x = a(LipsConv(64, 3, padding=1)(x))
-            x = a(LipsConv(64, 4, stride=2, padding=1)(x))
-            x = x.reshape(x.shape[0], -1)
-            x = a(LipsLinear(512)(x))
-            x = a(LipsLinear(512)(x))
-            x = LipsLinear(self.out_dim)(x)
+            convs = [(32, 3, 1), (32, 4, 2), (64, 3, 1), (64, 4, 2)]
+            hidden = [512, 512]
         elif self.arch == "6C2F":
-            x = a(LipsConv(32, 3, padding=1)(x))
-            x = a(LipsConv(32, 3, padding=1)(x))
-            x = a(LipsConv(32, 4, stride=2, padding=1)(x))
-            x = a(LipsConv(64, 3, padding=1)(x))
-            x = a(LipsConv(64, 3, padding=1)(x))
-            x = a(LipsConv(64, 4, stride=2, padding=1)(x))
-            x = x.reshape(x.shape[0], -1)
-            x = a(LipsLinear(512)(x))
-            x = LipsLinear(self.out_dim)(x)
+            convs = [(32, 3, 1), (32, 3, 1), (32, 4, 2),
+                     (64, 3, 1), (64, 3, 1), (64, 4, 2)]
+            hidden = [512]
         else:
             raise ValueError(f"unknown arch {self.arch!r}")
-        return x
+        out = [Normalize(self.mu, self.std)]
+        for f, k, s in convs:
+            out += [LipsConv(f, k, stride=s, padding=1), a]
+        out.append(_flatten)
+        for f in hidden:
+            out += [LipsLinear(f), a]
+        out.append(LipsLinear(self.out_dim))
+        return out
 
 
-class TinyMLPBackbone(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class TinyMLPBackbone(_Sequential):
     """Small flatten->MLP feature map (tests / fast CPU experiments; not in
     the reference zoo)."""
 
@@ -128,16 +166,15 @@ class TinyMLPBackbone(nn.Module):
     mu: Sequence[float] = (0.0,)
     std: Sequence[float] = (1.0,)
 
-    @nn.compact
-    def __call__(self, x):
-        x = Normalize(self.mu, self.std)(x)
-        x = x.reshape(x.shape[0], -1)
-        x = nn.relu(LipsLinear(self.hidden)(x))
-        x = LipsLinear(self.out_dim)(x)
-        return x
+    def layers(self):
+        return [
+            Normalize(self.mu, self.std), _flatten,
+            LipsLinear(self.hidden), jax.nn.relu,
+            LipsLinear(self.out_dim),
+        ]
 
 
-def make_backbone(name: str, *, out_dim: int, act: str, mu, std) -> nn.Module:
+def make_backbone(name: str, *, out_dim: int, act: str, mu, std) -> Module:
     """Factory matching the reference's param_map registry
     (ExpConfig.py:107-162): ORTHO_KWLarge_Concat, ORTHO_KWLargeMNIST_Concat,
     CIFAR_4C3F, CIFAR_4C3F_nolips, CIFAR_6C2F, Identity."""

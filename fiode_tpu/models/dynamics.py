@@ -22,16 +22,16 @@ CROWN/IBP bound helpers over this graph live in fiode_tpu/verify.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
 from ..ops.cayley import cayley, groupsort2
 from ..ops.simplex_qp import simplex_cone_project
 from ..utils.debug import env_flag
-from .layers import CayleyLinear, LipsLinear
+from .layers import CayleyLinear, LipsLinear, Module, fold_path
 
 __all__ = ["SimplexDynamics", "barrier_bounds", "densify_dynamics_params"]
 
@@ -42,8 +42,22 @@ def barrier_bounds(h, alpha_1, sigma_1, alpha_2):
     return lower, upper
 
 
-class SimplexDynamics(nn.Module):
-    """f(h, x): simplex-cone-projected Lipschitz MLP dynamics."""
+def _dropout(x, rate, rng, name):
+    """Inverted dropout with the mask keyed by the layer ``name``."""
+    if rng is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = jax.random.bernoulli(fold_path(rng, (name, 1)), p=keep,
+                                shape=x.shape)
+    return jax.lax.select(mask, x / keep, jnp.zeros_like(x))
+
+
+@dataclasses.dataclass(frozen=True)
+class SimplexDynamics(Module):
+    """f(h, x): simplex-cone-projected Lipschitz MLP dynamics.
+
+    ``init(key, h, x)`` / ``eval_dot(params, h, x)``; ``rng`` (train-time
+    dropout) is the only stochasticity."""
 
     n_hidden: int = 10
     mlp_size: int = 128
@@ -59,32 +73,46 @@ class SimplexDynamics(nn.Module):
     kappa_length: int = 0
     qp_iters: int = 30
 
-    def setup(self):
+    def _layers(self):
         lin = CayleyLinear if self.cayley else LipsLinear
-        self.hidden_to_mlp = lin(self.mlp_size, name="hidden_to_mlp")
-        self.U_x = lin(self.mlp_size, name="U_x")
-        self.mlp_to_mlp = lin(self.mlp_size, name="mlp_to_mlp")
-        self.mlp_to_hidden = lin(self.n_hidden, name="mlp_to_hidden")
-        self.drop1 = nn.Dropout(self.dropout)
-        self.drop2 = nn.Dropout(self.dropout)
+        return {
+            "hidden_to_mlp": lin(self.mlp_size),
+            "U_x": lin(self.mlp_size),
+            "mlp_to_mlp": lin(self.mlp_size),
+            "mlp_to_hidden": lin(self.n_hidden),
+        }
+
+    def init_at(self, keys, h, x):
+        layers = self._layers()
+        p = {}
+
+        def lin(name, v):
+            p[name] = layers[name].init_at(keys.child(name), v)
+            return layers[name].apply(p[name], v)
+
+        z = self._act(lin("hidden_to_mlp", h) + lin("U_x", x))
+        lin("mlp_to_hidden", self._act(lin("mlp_to_mlp", z)))
+        return p
 
     def _act(self, x):
         if self.activation == "GroupSort":
             return groupsort2(x)
-        return nn.relu(x)
+        return jax.nn.relu(x)
 
-    def raw(self, h, x, *, train: bool = False):
-        """The unprojected f~ (reference _h_dot_raw, :96-102)."""
-        z = self.hidden_to_mlp(h) + self.U_x(x)
-        z = self._act(self.drop1(z, deterministic=not train))
-        z = self.mlp_to_mlp(z)
-        z = self._act(self.drop2(z, deterministic=not train))
-        z = self.mlp_to_hidden(z)
-        return z
+    def raw(self, params, h, x, *, rng=None):
+        """The unprojected f~ (reference _h_dot_raw, :96-102); ``rng``
+        turns train-time dropout on."""
+        layers = self._layers()
+        lin = lambda name, v: layers[name].apply(params[name], v)
+        z = lin("hidden_to_mlp", h) + lin("U_x", x)
+        z = self._act(_dropout(z, self.dropout, rng, "drop1"))
+        z = lin("mlp_to_mlp", z)
+        z = self._act(_dropout(z, self.dropout, rng, "drop2"))
+        return lin("mlp_to_hidden", z)
 
-    def eval_dot(self, h, x, *, train: bool = False, scale_nominal=None):
+    def eval_dot(self, params, h, x, *, rng=None, scale_nominal=None):
         """The projected dynamics f(h, x) (reference eval_dot, :104-115)."""
-        f_tilde = self.raw(h, x, train=train)
+        f_tilde = self.raw(params, h, x, rng=rng)
         lower, upper = barrier_bounds(h, self.alpha_1, self.sigma_1, self.alpha_2)
         sn = self.scale_nominal if scale_nominal is None else scale_nominal
         if sn:
@@ -101,9 +129,6 @@ class SimplexDynamics(nn.Module):
             lower, f_tilde, self.qp_iters, env_flag("FIODE_QP_UNROLL"),
             qp_method_from_env(),
         )
-
-    def __call__(self, h, x, *, train: bool = False, scale_nominal=None):
-        return self.eval_dot(h, x, train=train, scale_nominal=scale_nominal)
 
 
 def _dense_from_cayley(p: Dict[str, Any]) -> Dict[str, Any]:

@@ -22,31 +22,22 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
 from ..ode.adjoint import odeint_adjoint
 from ..ode.integrate import OdeSolution, odeint
-from ..ops.fused_rhs import LANE, fused_rhs, pack_rhs_params
-from ..utils.debug import env_flag
+from ..ops.fused_rhs import (BLOCK, ambient_dot_precision, fused_rhs,
+                             pack_rhs_params, pad_width)
 from .dynamics import SimplexDynamics, densify_dynamics_params
+from .layers import Module
 
 __all__ = ["NeuralODEClassifier"]
 
 
-def _fused_default() -> bool:
-    """Env gate: FIODE_FUSED=1 turns the Pallas fused RHS on for every solve
-    that doesn't pass ``fused=`` explicitly.  Off by default: measured on
-    v5e the fused RHS runs the ODE portion of a dopri5 solve ~2.7x slower
-    than the XLA path (XLA already fuses this chain well; see README design
-    notes) — the kernel remains available for experimentation."""
-    return env_flag("FIODE_FUSED")
-
-
 @dataclasses.dataclass
 class NeuralODEClassifier:
-    backbone: Optional[nn.Module]
+    backbone: Optional[Module]
     dynamics: SimplexDynamics
     n_classes: int
     t_max: float = 1.0
@@ -63,14 +54,12 @@ class NeuralODEClassifier:
         kb, kd, ko = jax.random.split(rng, 3)
         params = {}
         if self.backbone is not None:
-            params["backbone"] = self.backbone.init(kb, sample_x)["params"]
+            params["backbone"] = self.backbone.init(kb, sample_x)
             feats = self.features(params, sample_x)
         else:
             feats = sample_x
         h0 = self.h0(sample_x.shape[0])
-        params["dynamics"] = self.dynamics.init(
-            kd, h0, feats, method=self.dynamics.eval_dot
-        )["params"]
+        params["dynamics"] = self.dynamics.init(kd, h0, feats)
         if self.output == "linear":
             # LinearLastOutput readout (output_coordinates.py:21-28),
             # xavier-uniform, no bias
@@ -86,7 +75,7 @@ class NeuralODEClassifier:
     def features(self, params, x):
         if self.backbone is None:
             return x
-        return self.backbone.apply({"params": params["backbone"]}, x)
+        return self.backbone.apply(params["backbone"], x)
 
     def h0(self, batch_size: int):
         n = self.dynamics.n_hidden
@@ -111,78 +100,69 @@ class NeuralODEClassifier:
 
     def eval_dot(self, params, h, x_feat, *, train=False, rng=None,
                  scale_nominal=None):
-        variables = {"params": params["dynamics"]}
-        rngs = {"dropout": rng} if (train and rng is not None) else None
-        return self.dynamics.apply(
-            variables,
-            h,
-            x_feat,
-            train=train,
+        return self.dynamics.eval_dot(
+            params["dynamics"], h, x_feat, rng=rng if train else None,
             scale_nominal=scale_nominal,
-            method=self.dynamics.eval_dot,
-            rngs=rngs,
         )
 
     def raw_dot(self, params, h, x_feat, *, train=False, rng=None):
-        variables = {"params": params["dynamics"]}
-        rngs = {"dropout": rng} if (train and rng is not None) else None
-        return self.dynamics.apply(
-            variables, h, x_feat, train=train,
-            method=self.dynamics.raw, rngs=rngs,
+        return self.dynamics.raw(
+            params["dynamics"], h, x_feat, rng=rng if train else None
         )
 
     # -- fused fast path -----------------------------------------------------
 
     def _fused_setup(self, params, feats):
-        """Padded weights + input injection for the fused Pallas RHS.
+        """Packed weights + input injection for the fused RHS kernel.
 
         Densifies Cayley layers and precomputes xc = U feats + bU + b1 once
-        per solve — both are loop-invariant and hoisted out of the
-        integration by XLA (the reference recomputes U_x(x) on every RHS
-        eval, dynamics/classification.py:97)."""
+        per solve — both are loop-invariant (the reference recomputes
+        U_x(x) on every RHS eval, dynamics/classification.py:97)."""
         dense = densify_dynamics_params(params["dynamics"])
-        W1 = dense["hidden_to_mlp"]["kernel"]
-        b1 = dense["hidden_to_mlp"]["bias"]
+        p = pack_rhs_params(
+            dense["hidden_to_mlp"]["kernel"], dense["mlp_to_mlp"]["kernel"],
+            dense["mlp_to_hidden"]["kernel"], dense["mlp_to_mlp"]["bias"],
+            dense["mlp_to_hidden"]["bias"],
+        )
         U = dense["U_x"]["kernel"]
-        bU = dense["U_x"]["bias"]
-        W2 = dense["mlp_to_mlp"]["kernel"]
-        b2 = dense["mlp_to_mlp"]["bias"]
-        W3 = dense["mlp_to_hidden"]["kernel"]
-        b3 = dense["mlp_to_hidden"]["bias"]
-        p = pack_rhs_params(W1, W2, W3, b2, b3)
-        xc = feats @ U.T + bU + b1  # (B, mlp)
-        xc_pad = jnp.zeros((feats.shape[0], LANE), xc.dtype)
-        xc_pad = xc_pad.at[:, : xc.shape[1]].set(xc)
-        return p, xc_pad
+        xc = feats @ U.T + dense["U_x"]["bias"] + dense["hidden_to_mlp"]["bias"]
+        return p, jnp.pad(xc, ((0, 0), (0, p.W2t.shape[0] - xc.shape[1])))
 
     def _solve_fused(self, params, x, ts, *, mode, scale_nominal, method,
-                    rtol, atol):
+                     rtol, atol):
+        """Solve on a padded state: lanes to ``pad_width(n)`` and rows to a
+        multiple of the kernel's block, once per solve.  Padded lanes and
+        rows carry zero weight in the step-size error norm, so step control
+        sees exactly the unpadded state."""
         dyn = self.dynamics
+        if dyn.activation != "ReLU":
+            raise ValueError("the fused RHS kernel implements ReLU dynamics")
         n = dyn.n_hidden
+        B = x.shape[0]
         feats = self.features(params, x)
-        p, xc_pad = self._fused_setup(params, feats)
+        p, xc = self._fused_setup(params, feats)
         sn = dyn.scale_nominal if scale_nominal is None else scale_nominal
-        h0 = self.h0(x.shape[0])
-        h0_pad = jnp.zeros((x.shape[0], LANE), h0.dtype)
-        h0_pad = h0_pad.at[:, :n].set(h0)
-        # keep torchdiffeq error-norm semantics on the padded state
-        weight = (jnp.arange(LANE) < n).astype(h0.dtype)[None, :]
-        weight = jnp.broadcast_to(weight, h0_pad.shape)
+        rows = B + (-B % BLOCK)
+        NP = pad_width(n)
+        h0 = jnp.zeros((rows, NP)).at[:B, :n].set(self.h0(B))
+        xc = jnp.pad(xc, ((0, rows - B), (0, 0)))
+        weight = jnp.zeros((rows, NP)).at[:B, :n].set(1.0)
 
         def f(t, h, args):
-            pp, xc = args
+            pp, xcc = args
             return fused_rhs(
-                h, xc, pp, n, dyn.alpha_1, dyn.sigma_1, dyn.alpha_2, sn,
-                dyn.qp_iters,
+                h, xcc, pp, n, dyn.alpha_1, dyn.sigma_1, dyn.alpha_2, sn,
+                dyn.qp_iters, BLOCK,
             )
 
         sol = odeint(
-            f, h0_pad, ts, (p, xc_pad),
-            method=method or self.method, rtol=self.rtol if rtol is None else rtol,
-            atol=self.atol if atol is None else atol, max_steps=self.max_steps, mode=mode,
-            error_weight=weight,
+            f, h0, ts, (p, xc),
+            method=method or self.method,
+            rtol=self.rtol if rtol is None else rtol,
+            atol=self.atol if atol is None else atol,
+            max_steps=self.max_steps, mode=mode, error_weight=weight,
         )
-        return OdeSolution(sol.ys[..., :n], sol.nfe, sol.n_accepted,
+        return OdeSolution(sol.ys[..., :B, :n], sol.nfe, sol.n_accepted,
                            sol.n_rejected)
 
     # -- forward (integrate) -------------------------------------------------
@@ -205,34 +185,58 @@ class NeuralODEClassifier:
 
         With use_adjoint=True, gradients flow to x (and params) through the
         continuous adjoint; ys only (no NFE stats) are returned in that case.
-        ``fused=None`` defers to the FIODE_FUSED env var (off by default).
+        ``fused=None`` picks the RHS per platform when the program is
+        lowered: the fused Triton kernel (ops/fused_rhs.py) on CUDA, where
+        it beat XLA's op-by-op RHS end to end on the flagship solve, and
+        the plain jnp RHS on the CPU; other platforms fail to lower.  Under
+        float32 matmul precision the plain RHS runs everywhere: the
+        kernel's IEEE dots lose to XLA's there (PERF.md).
+        ``fused=True/False`` forces one (tests, benchmarks).
         """
-        if fused is None:
-            fused = _fused_default()
         if ts is None:
             ts = jnp.asarray([0.0, self.t_max])
-        if fused and not use_adjoint:
-            return self._solve_fused(
-                params, x, ts, mode=mode, scale_nominal=scale_nominal,
-                method=method, rtol=rtol, atol=atol,
+        kw = dict(mode=mode, scale_nominal=scale_nominal, method=method,
+                  rtol=rtol, atol=atol)
+        if use_adjoint:
+            return self._solve_adjoint(params, x, ts, **kw)
+        if fused is None and (
+            self.dynamics.activation != "ReLU"  # the kernel's dynamics
+            or ambient_dot_precision() == jax.lax.Precision.HIGHEST
+        ):
+            fused = False
+        if fused is None:
+            return jax.lax.platform_dependent(
+                params, x, ts,
+                cpu=lambda p, x, ts: self._solve_plain(p, x, ts, **kw),
+                cuda=lambda p, x, ts: self._solve_fused(p, x, ts, **kw),
             )
+        if fused:
+            return self._solve_fused(params, x, ts, **kw)
+        return self._solve_plain(params, x, ts, **kw)
+
+    def _solve_adjoint(self, params, x, ts, *, mode, scale_nominal, method,
+                       rtol, atol):
+        feats = self.features(params, x)
+        h0 = self.h0(x.shape[0])
+
+        def f(t, h, args):
+            return self.eval_dot(args, h, args["__feats__"],
+                                 scale_nominal=scale_nominal)
+
+        args = {"dynamics": params["dynamics"], "__feats__": feats}
+        ys = odeint_adjoint(
+            f, h0, ts, args,
+            method or self.method, self.rtol if rtol is None else rtol,
+            self.atol if atol is None else atol, self.max_steps, True,
+        )
+        return OdeSolution(ys, jnp.zeros((), jnp.int32),
+                           jnp.zeros((), jnp.int32), jnp.zeros((), jnp.int32))
+
+    def _solve_plain(self, params, x, ts, *, mode, scale_nominal, method,
+                     rtol, atol):
         feats = self.features(params, x)
         h0 = self.h0(x.shape[0])
         dyn_params = {"dynamics": params["dynamics"]}
-
-        if use_adjoint:
-            def f(t, h, args):
-                return self.eval_dot(args, h, args["__feats__"],
-                                     scale_nominal=scale_nominal)
-
-            args = dict(dyn_params, __feats__=feats)
-            ys = odeint_adjoint(
-                f, h0, ts, args,
-                method or self.method, self.rtol if rtol is None else rtol, self.atol if atol is None else atol,
-                self.max_steps, True,
-            )
-            return OdeSolution(ys, jnp.zeros((), jnp.int32),
-                               jnp.zeros((), jnp.int32), jnp.zeros((), jnp.int32))
 
         def f(t, h, args):
             return self.eval_dot(args, h, feats, scale_nominal=scale_nominal)

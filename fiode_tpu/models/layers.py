@@ -1,5 +1,12 @@
-"""Flax layers: Normalize, Cayley orthogonal linear/conv, Lipschitz-tracked
-conv/linear, GroupSort.
+"""Layers: Normalize, Cayley orthogonal linear/conv, Lipschitz-tracked
+conv/linear, GroupSort — plain functional modules.
+
+Every module is a frozen dataclass of hyper-parameters with two methods:
+``init(key, *inputs) -> params`` (a nested dict of arrays) and
+``apply(params, *inputs)``.  Composite modules call ``init_at`` on their
+children with ``ParamKeys.child(name)``, so parameter paths
+(e.g. ``params["dynamics"]["hidden_to_mlp"]["kernel"]``) are the dict
+paths the Certifier and ``densify_dynamics_params`` read.
 
 Capability parity with the reference's layer zoo:
   * Normalize               — models.py:17-26 (mean/std inside the model so
@@ -21,9 +28,10 @@ Capability parity with the reference's layer zoo:
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 from typing import Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
@@ -37,6 +45,8 @@ from ..ops.cayley import (
 )
 
 __all__ = [
+    "Module",
+    "ParamKeys",
     "Normalize",
     "CayleyLinear",
     "CayleyConv",
@@ -47,6 +57,57 @@ __all__ = [
     "cache_cayley_params",
 ]
 
+_trunc_normal_fan_out = jax.nn.initializers.variance_scaling(
+    2.0, "fan_out", "truncated_normal"
+)
+_he_normal_fan_out = jax.nn.initializers.variance_scaling(2.0, "fan_out", "normal")
+_zeros = jax.nn.initializers.zeros
+
+
+def fold_path(key, path) -> jax.Array:
+    """``key`` with a static path (strings and ints) folded in: the SHA-1 of
+    the path's bytes, first 4 bytes big-endian, through ``fold_in``.
+
+    Keys made this way depend only on the path, never on the order in
+    which modules happen to be initialised, and match the layout that the
+    committed checkpoints and golden fixtures were initialised with."""
+    m = hashlib.sha1()
+    for x in path:
+        if isinstance(x, str):
+            m.update(x.encode("utf-8"))
+        else:
+            m.update(x.to_bytes((x.bit_length() + 7) // 8, byteorder="big"))
+    return jax.random.fold_in(
+        key, jnp.uint32(int.from_bytes(m.digest()[:4], byteorder="big"))
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamKeys:
+    """PRNG keys for the parameters of one module: the ``i``-th parameter a
+    module creates (1-based) draws ``fold_path(key, path + (i,))``."""
+
+    key: jax.Array
+    path: tuple = ()
+
+    def child(self, name: str) -> "ParamKeys":
+        return ParamKeys(self.key, self.path + (name,))
+
+    def __call__(self, index: int) -> jax.Array:
+        return fold_path(self.key, self.path + (index,))
+
+
+class Module:
+    """Functional module: ``init(key, *inputs) -> params``,
+    ``apply(params, *inputs)``.  Subclasses implement ``init_at(keys,
+    *inputs)`` (parameters for inputs shaped like ``inputs``)."""
+
+    def init(self, key, *inputs):
+        return self.init_at(ParamKeys(key), *inputs)
+
+    def init_at(self, keys: ParamKeys, *inputs):
+        return {}
+
 
 def cache_cayley_params(cached_module, train_params, example_x, rng=None):
     """Densify trained Cayley weights into the ``cached=True`` twin's params.
@@ -55,16 +116,13 @@ def cache_cayley_params(cached_module, train_params, example_x, rng=None):
     ``jax.eval_shape``) alongside the trained params: every {"Q"} leaf-dict
     is filled with the orthogonalised weight — ``cayley_linear_kernel`` for
     2-D Q, per-frequency ``cayley_conv_kernel`` for 4-D (n, nf, co, ci) Q —
-    and everything else (biases, Normalize stats, plain layers) is copied
-    through.  The equivalent of the ortho_conv fork's test-model weight
-    caching (reference models.py:154-165: ortho_models_test.* share the
-    train models' state_dicts).
+    and everything else (biases, plain layers) is copied through.  The
+    equivalent of the ortho_conv fork's test-model weight caching (reference
+    models.py:154-165: ortho_models_test.* share the train models'
+    state_dicts).
     """
     rng = rng if rng is not None else jax.random.PRNGKey(0)
     shapes = jax.eval_shape(cached_module.init, rng, example_x)
-    if "params" in shapes:
-        shapes = shapes["params"]
-    src = train_params["params"] if "params" in train_params else train_params
 
     def fill(shape_tree, src_tree):
         if isinstance(shape_tree, dict):
@@ -86,33 +144,38 @@ def cache_cayley_params(cached_module, train_params, example_x, rng=None):
             return {k: fill(v, src_tree[k]) for k, v in shape_tree.items()}
         return src_tree
 
-    return {"params": fill(shapes, src)}
+    return fill(shapes, train_params)
 
 
-class Normalize(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class Normalize(Module):
     """(x - mu) / std with fixed statistics baked into the graph."""
 
     mu: Sequence[float]
     std: Sequence[float]
 
-    @nn.compact
-    def __call__(self, x):
+    def apply(self, params, x):
         # NCHW: broadcast over (C, 1, 1)
         mu = jnp.asarray(self.mu, x.dtype).reshape(-1, 1, 1)
         std = jnp.asarray(self.std, x.dtype).reshape(-1, 1, 1)
         return (x - mu) / std
 
 
-class GroupSort(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class GroupSort(Module):
     """MaxMin over pairs of *channels*: axis 1 for NCHW, last axis otherwise."""
 
-    @nn.compact
-    def __call__(self, x):
+    def apply(self, params, x):
         axis = 1 if x.ndim == 4 else -1
         return groupsort2(x, axis)
 
 
-class CayleyLinear(nn.Module):
+def _alpha_init(W):
+    return jnp.linalg.norm(W).astype(jnp.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class CayleyLinear(Module):
     """Orthogonal linear layer y = Q x + b, Q = cayley(alpha W / ||W||).
 
     ``cached=True`` is the test/inference variant (the ortho_conv fork's
@@ -125,43 +188,30 @@ class CayleyLinear(nn.Module):
     use_bias: bool = True
     cached: bool = False
 
-    @nn.compact
-    def __call__(self, x):
-        in_features = x.shape[-1]
+    def init_at(self, keys, x):
+        shape = (self.features, x.shape[-1])
         if self.cached:
             # NaN init: a cached twin used without cache_cayley_params is a
             # bug (it would otherwise silently emit zero features); NaN
             # surfaces the misuse at the first forward
-            Q = self.param(
-                "Q",
-                lambda _k, s: jnp.full(s, jnp.nan, jnp.float32),
-                (self.features, in_features),
-            )
+            p = {"Q": jnp.full(shape, jnp.nan, jnp.float32)}
         else:
-            W = self.param(
-                "weight",
-                nn.initializers.variance_scaling(2.0, "fan_out", "truncated_normal"),
-                (self.features, in_features),
-            )
-            alpha = self.param(
-                "alpha", lambda _k: jnp.linalg.norm(W).astype(jnp.float32)
-            )
-            Q = cayley(alpha * W / jnp.linalg.norm(W))
+            W = _trunc_normal_fan_out(keys(1), shape)
+            p = {"weight": W, "alpha": _alpha_init(W)}
+        if self.use_bias:
+            p["bias"] = _zeros(keys(len(p) + 1), (self.features,))
+        return p
+
+    def apply(self, params, x):
+        if self.cached:
+            Q = params["Q"]
+        else:
+            W = params["weight"]
+            Q = cayley(params["alpha"] * W / jnp.linalg.norm(W))
         y = x @ Q.T
         if self.use_bias:
-            b = self.param("bias", nn.initializers.zeros, (self.features,))
-            y = y + b
+            y = y + params["bias"]
         return y
-
-
-def _fused_conv_enabled() -> bool:
-    """Env gate: FIODE_FUSED_CONV=1 routes CayleyConv through the fused
-    Pallas frequency-apply kernel (ops/fused_cayley_conv.py); off by
-    default — measured slower than the XLA dense-DFT path on v5e (see
-    that module's docstring for the numbers)."""
-    from ..utils.debug import env_flag
-
-    return env_flag("FIODE_FUSED_CONV")
 
 
 def space_to_depth(x, block: int = 2):
@@ -172,7 +222,8 @@ def space_to_depth(x, block: int = 2):
     return x.reshape(b, c * block * block, h // block, w // block)
 
 
-class CayleyConv(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class CayleyConv(Module):
     """Orthogonal circular convolution (FFT-domain Cayley), NCHW.
 
     stride=2 is emulated by space_to_depth(2) then a stride-1 orthogonal conv
@@ -186,82 +237,66 @@ class CayleyConv(nn.Module):
     use_bias: bool = True
     cached: bool = False
 
-    @nn.compact
-    def __call__(self, x):
+    def _prepare(self, x):
         if self.stride == 2:
-            x = space_to_depth(x, 2)
-            k = max(1, (self.kernel_size + 1) // 2)
-        elif self.stride == 1:
-            k = self.kernel_size
-        else:
-            raise ValueError("CayleyConv supports stride 1 or 2")
+            return space_to_depth(x, 2), max(1, (self.kernel_size + 1) // 2)
+        if self.stride == 1:
+            return x, self.kernel_size
+        raise ValueError("CayleyConv supports stride 1 or 2")
+
+    def init_at(self, keys, x):
+        x, k = self._prepare(x)
         ci = x.shape[1]
         if self.cached:
             # per-frequency semi-orthogonal matrices, precomputed once from
             # trained weights (cache_cayley_params); stored (n, nf, co, ci)
-            # so the spatial size is recoverable from the shape
+            # so the spatial size is recoverable from the shape.  NaN init
+            # for the same reason as CayleyLinear's cached Q
             n = x.shape[-1]
-            nf = n // 2 + 1
-            # NaN init for the same reason as CayleyLinear's cached Q:
-            # an un-cached twin must fail loudly, not emit zeros
-            Qf = self.param(
-                "Q",
-                lambda _k, s: jnp.full(s, jnp.nan, jnp.complex64),
-                (n, nf, self.features, ci),
-            )
-            Qf = Qf.reshape(n * nf, self.features, ci)
-            if _fused_conv_enabled():
-                from ..ops.fused_cayley_conv import fused_freq_apply
-
-                y = fused_freq_apply(x, Qf)
-            else:
-                y = apply_freq_matrices(x, Qf)
+            shape = (n, n // 2 + 1, self.features, ci)
+            p = {"Q": jnp.full(shape, jnp.nan, jnp.complex64)}
         else:
-            W = self.param(
-                "weight",
-                nn.initializers.variance_scaling(2.0, "fan_out", "truncated_normal"),
-                (self.features, ci, k, k),
-            )
-            alpha = self.param(
-                "alpha", lambda _k: jnp.linalg.norm(W).astype(jnp.float32)
-            )
-            if _fused_conv_enabled():
-                from ..ops.cayley import cayley_conv_kernel
-                from ..ops.fused_cayley_conv import fused_freq_apply
-
-                y = fused_freq_apply(
-                    x, cayley_conv_kernel(W, alpha, x.shape[-1])
-                )
-            else:
-                y = cayley_conv_apply(x, W, alpha)
+            W = _trunc_normal_fan_out(keys(1), (self.features, ci, k, k))
+            p = {"weight": W, "alpha": _alpha_init(W)}
         if self.use_bias:
-            b = self.param("bias", nn.initializers.zeros, (self.features,))
-            y = y + b[None, :, None, None]
+            p["bias"] = _zeros(keys(len(p) + 1), (self.features,))
+        return p
+
+    def apply(self, params, x):
+        x, _ = self._prepare(x)
+        if self.cached:
+            Qf = params["Q"]
+            n, nf = Qf.shape[:2]
+            y = apply_freq_matrices(x, Qf.reshape(n * nf, *Qf.shape[2:]))
+        else:
+            y = cayley_conv_apply(x, params["weight"], params["alpha"])
+        if self.use_bias:
+            y = y + params["bias"][None, :, None, None]
         return y
 
 
-class LipsLinear(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class LipsLinear(Module):
     """Plain linear layer whose spectral norm is tracked externally."""
 
     features: int
     use_bias: bool = True
 
-    @nn.compact
-    def __call__(self, x):
-        in_features = x.shape[-1]
-        W = self.param(
-            "kernel",
-            nn.initializers.variance_scaling(2.0, "fan_out", "normal"),
-            (self.features, in_features),
-        )
-        y = x @ W.T
+    def init_at(self, keys, x):
+        p = {"kernel": _he_normal_fan_out(keys(1), (self.features, x.shape[-1]))}
         if self.use_bias:
-            b = self.param("bias", nn.initializers.zeros, (self.features,))
-            y = y + b
+            p["bias"] = _zeros(keys(2), (self.features,))
+        return p
+
+    def apply(self, params, x):
+        y = x @ params["kernel"].T
+        if self.use_bias:
+            y = y + params["bias"]
         return y
 
 
-class LipsConv(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class LipsConv(Module):
     """Plain NCHW conv (He-init, reference models.py:71-75) with tracked sigma."""
 
     features: int
@@ -270,28 +305,26 @@ class LipsConv(nn.Module):
     padding: int = 0
     use_bias: bool = True
 
-    @nn.compact
-    def __call__(self, x):
-        ci = x.shape[1]
+    def init_at(self, keys, x):
         k = self.kernel_size
+        shape = (self.features, x.shape[1], k, k)
         # He normal: std = sqrt(2 / (k*k*out))  (reference init,
         # dynamics/classification.py:87-91)
-        def he(key, shape):
-            n = shape[2] * shape[3] * shape[0]
-            return jax.random.normal(key, shape) * jnp.sqrt(2.0 / n)
+        std = jnp.sqrt(2.0 / (shape[2] * shape[3] * shape[0]))
+        p = {"kernel": jax.random.normal(keys(1), shape) * std}
+        if self.use_bias:
+            p["bias"] = _zeros(keys(2), (self.features,))
+        return p
 
-        W = self.param("kernel", he, (self.features, ci, k, k))
-        dn = jax.lax.conv_dimension_numbers(
-            x.shape, W.shape, ("NCHW", "OIHW", "NCHW")
-        )
+    def apply(self, params, x):
+        W = params["kernel"]
         y = jax.lax.conv_general_dilated(
             x,
             W,
             (self.stride, self.stride),
             [(self.padding, self.padding)] * 2,
-            dimension_numbers=dn,
+            dimension_numbers=("NCHW", "OIHW", "NCHW"),
         )
         if self.use_bias:
-            b = self.param("bias", nn.initializers.zeros, (self.features,))
-            y = y + b[None, :, None, None]
+            y = y + params["bias"][None, :, None, None]
         return y

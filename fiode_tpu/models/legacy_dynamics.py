@@ -15,49 +15,71 @@ dynamics/init_coordinates.py:26-27).
 """
 from __future__ import annotations
 
-import flax.linen as nn
+import dataclasses
+
+import jax
 import jax.numpy as jnp
+
+from .layers import Module, ParamKeys
 
 __all__ = ["ConvBlockDynamics", "DynBasicBlock", "DynBottleneck", "ResNetOutput"]
 
+_lecun_normal = jax.nn.initializers.lecun_normal()
 
-def _conv(features, k=3, stride=1):
-    # NCHW conv helper
-    return nn.Conv(
-        features, (k, k), strides=(stride, stride), padding="SAME",
-        use_bias=False,
+
+def _conv_init(key, c_in, c_out, k=3):
+    """OIHW kernel, LeCun-normal over the fan-in c_in * k * k."""
+    return _lecun_normal(key, (k, k, c_in, c_out)).transpose(3, 2, 0, 1)
+
+
+def _conv(x, W):
+    """'SAME'-padded stride-1 NCHW convolution without bias."""
+    return jax.lax.conv_general_dilated(
+        x, W, (1, 1), "SAME", dimension_numbers=("NCHW", "OIHW", "NCHW")
     )
 
 
-class _NCHW(nn.Module):
-    """Wrap an NHWC flax conv stack for NCHW tensors."""
-
-    inner: nn.Module
-
-    @nn.compact
-    def __call__(self, x):
-        x = jnp.transpose(x, (0, 2, 3, 1))
-        x = self.inner(x)
-        return jnp.transpose(x, (0, 3, 1, 2))
+def _groups(ch):
+    return next(g for g in (8, 4, 2, 1) if ch % g == 0)
 
 
-class DynBasicBlock(nn.Module):
+def _group_norm(x, p, groups, eps=1e-6):
+    """GroupNorm over NCHW with a learned per-channel scale and bias."""
+    b, c, h, w = x.shape
+    g = x.reshape(b, groups, c // groups, h, w)
+    mean = g.mean(axis=(2, 3, 4), keepdims=True)
+    var = g.var(axis=(2, 3, 4), keepdims=True)
+    g = (g - mean) * jax.lax.rsqrt(var + eps)
+    return (g.reshape(b, c, h, w) * p["scale"][None, :, None, None]
+            + p["bias"][None, :, None, None])
+
+
+def _norm_params(c):
+    return {"scale": jnp.ones((c,)), "bias": jnp.zeros((c,))}
+
+
+@dataclasses.dataclass(frozen=True)
+class DynBasicBlock(Module):
     """BasicBlock-shaped RHS: conv-norm-act-conv-norm (NO residual add)."""
 
     features: int
 
-    @nn.compact
-    def __call__(self, h):  # h: (B, C, H, W)
-        x = jnp.transpose(h, (0, 2, 3, 1))
-        x = _conv(self.features)(x)
-        x = nn.GroupNorm(num_groups=8)(x)
-        x = nn.relu(x)
-        x = _conv(self.features)(x)
-        x = nn.GroupNorm(num_groups=8)(x)
-        return jnp.transpose(x, (0, 3, 1, 2))
+    def init_at(self, keys, h):  # h: (B, C, H, W)
+        c = self.features
+        return {
+            "conv1": _conv_init(keys(1), h.shape[1], c),
+            "norm1": _norm_params(c),
+            "conv2": _conv_init(keys(2), c, c),
+            "norm2": _norm_params(c),
+        }
+
+    def apply(self, p, h):
+        x = jax.nn.relu(_group_norm(_conv(h, p["conv1"]), p["norm1"], 8))
+        return _group_norm(_conv(x, p["conv2"]), p["norm2"], 8)
 
 
-class DynBottleneck(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class DynBottleneck(Module):
     """Bottleneck-shaped RHS: 1x1 squeeze -> 3x3 -> 1x1 expand (NO residual
     add).  As an ODE right-hand side dh/dt must match h's channel count, so
     the final 1x1 expands back to ``features`` and the squeeze width is
@@ -66,57 +88,71 @@ class DynBottleneck(nn.Module):
     features: int
     expansion: int = 4
 
-    @nn.compact
-    def __call__(self, h):
-        x = jnp.transpose(h, (0, 2, 3, 1))
+    def init_at(self, keys, h):
         c = self.features
         w = max(c // self.expansion, 1)
-        groups = lambda ch: next(g for g in (8, 4, 2, 1) if ch % g == 0)
-        x = nn.relu(nn.GroupNorm(num_groups=groups(w))(_conv(w, k=1)(x)))
-        x = nn.relu(nn.GroupNorm(num_groups=groups(w))(_conv(w)(x)))
-        x = nn.GroupNorm(num_groups=groups(c))(_conv(c, k=1)(x))
-        return jnp.transpose(x, (0, 3, 1, 2))
+        return {
+            "conv1": _conv_init(keys(1), h.shape[1], w, k=1),
+            "norm1": _norm_params(w),
+            "conv2": _conv_init(keys(2), w, w),
+            "norm2": _norm_params(w),
+            "conv3": _conv_init(keys(3), w, c, k=1),
+            "norm3": _norm_params(c),
+        }
+
+    def apply(self, p, h):
+        w = p["conv1"].shape[0]
+        x = jax.nn.relu(_group_norm(_conv(h, p["conv1"]), p["norm1"], _groups(w)))
+        x = jax.nn.relu(_group_norm(_conv(x, p["conv2"]), p["norm2"], _groups(w)))
+        return _group_norm(_conv(x, p["conv3"]), p["norm3"],
+                           _groups(self.features))
 
 
-class ConvBlockDynamics(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class ConvBlockDynamics(Module):
     """Conv dynamics over image-shaped hidden state with input injection.
 
-    eval_dot(h, x): f = block(h) + stem(x); state_init(x) = stem(x) —
-    the ResNetBlockDyn pattern (dynamics/resnet_block.py).
+    eval_dot(params, h, x): f = block(h) + stem(x);
+    state_init(params, x) = stem(x) — the ResNetBlockDyn pattern
+    (dynamics/resnet_block.py).
     """
 
     features: int = 32
     block: str = "basic"  # 'basic' | 'bottleneck'
 
-    def setup(self):
-        self.stem = _NCHW(
-            nn.Sequential([
-                nn.Conv(self.features, (3, 3), padding="SAME", use_bias=False),
-                nn.relu,
-            ])
-        )
+    def _body(self):
         if self.block == "basic":
-            self.body = DynBasicBlock(self.features)
-        else:
-            self.body = DynBottleneck(self.features)
+            return DynBasicBlock(self.features)
+        return DynBottleneck(self.features)
 
-    def state_init(self, x):
-        return self.stem(x)
+    def init_at(self, keys: ParamKeys, h, x):
+        return {
+            "stem": _conv_init(keys(1), x.shape[1], self.features),
+            "body": self._body().init_at(keys.child("body"), h),
+        }
 
-    def eval_dot(self, h, x, *, train: bool = False, scale_nominal=None):
-        return self.body(h) + self.stem(x)
+    def state_init(self, params, x):
+        return jax.nn.relu(_conv(x, params["stem"]))
 
-    def __call__(self, h, x, *, train: bool = False, scale_nominal=None):
-        return self.eval_dot(h, x, train=train)
+    def eval_dot(self, params, h, x, *, scale_nominal=None):
+        return (self._body().apply(params["body"], h)
+                + self.state_init(params, x))
+
+    apply = eval_dot
 
 
-class ResNetOutput(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class ResNetOutput(Module):
     """Global-pool + linear readout from conv state to logits
     (naiveResNet.py ResNetOutput)."""
 
     n_classes: int = 10
 
-    @nn.compact
-    def __call__(self, h):  # (B, C, H, W)
-        x = jnp.mean(h, axis=(2, 3))
-        return nn.Dense(self.n_classes)(x)
+    def init_at(self, keys, h):  # (B, C, H, W)
+        return {
+            "kernel": _lecun_normal(keys(1), (h.shape[1], self.n_classes)),
+            "bias": jnp.zeros((self.n_classes,)),
+        }
+
+    def apply(self, p, h):
+        return jnp.mean(h, axis=(2, 3)) @ p["kernel"] + p["bias"]

@@ -1,6 +1,6 @@
 """Adaptive/fixed-step ODE integration on XLA-friendly control flow.
 
-TPU-native rebuild of the torchdiffeq `odeint` capability used by the
+JAX rebuild of the torchdiffeq `odeint` capability used by the
 reference (FI-ODE models.py:221-241, pl_modules.py:18-35):
 
   * batch-global adaptive step control: the error norm is an RMS over the
@@ -331,9 +331,8 @@ def _integrate_adaptive_scan(tab, f, y0, ts, rtol, atol, args, max_steps, error_
 # ---------------------------------------------------------------------------
 # Adaptive integration — chunked mode: while_loop over blocks of K masked
 # steps.  Data-dependent predicates are only evaluated every K steps, which
-# matters on backends where each while-iteration predicate costs a host
-# round trip (e.g. remote TPU relays); on native hardware it is within
-# noise of 'while' mode.  Endpoint output only (ts = [t0, t_final]).
+# matters where each while-iteration predicate costs a device->host round
+# trip.  Endpoint output only (ts = [t0, t_final]).
 # ---------------------------------------------------------------------------
 
 
@@ -585,7 +584,7 @@ def odeint(
     if method == "scipy_solver":
         # host-side scipy RK45 via pure_callback (reference solver-name
         # parity, pl_modules.py:18-19; debugging/cross-checking only — on
-        # TPU every call round-trips to the host)
+        # an accelerator every call round-trips to the host)
         return _integrate_scipy(f, y0, ts, rtol, atol, args)
     if method in FIXED_SOLVERS:
         if step_size is None:

@@ -3,7 +3,7 @@
 The reference's Lipschitz-1 layers come from its `libs/ortho_conv` submodule
 (a fork of locuslab/orthogonal-convolutions; see FI-ODE README.md:69 and
 dynamics/classification.py:69-75).  This module provides the same capability
-surface, built TPU-first:
+surface, built for an accelerator:
 
   * ``cayley(W)``        — dense Cayley transform producing an orthogonal
                            (or semi-orthogonal) matrix from an unconstrained
@@ -15,8 +15,8 @@ surface, built TPU-first:
   * ``cayley_conv_kernel`` / ``cayley_conv_apply`` — orthogonal convolution in
                            the Fourier domain: per-frequency Cayley transform
                            of the FFT'd kernel, applied by batched complex
-                           matmuls (maps onto the MXU as real 2x2-block GEMMs
-                           via XLA's complex lowering).
+                           matmuls (real 2x2-block GEMMs via XLA's complex
+                           lowering).
 
 All functions are pure and differentiable; orthogonality is exact up to the
 linear solve tolerance.
@@ -173,23 +173,23 @@ def cayley_conv_apply(
       x:      (batch, ci, n, n) input in NCHW (n must cover the kernel).
       weight: (co, ci, k, k) unconstrained kernel.
       alpha:  scalar learnable norm target.
-      impl:   'dft' (dense 2-D DFT-as-matmul, MXU path), 'dft1'
-              (factorised rows-then-columns 1-D DFT matmuls — fewer FLOPs
-              but loses to 'dft' on v5e, see apply_freq_matrices), 'fft'
-              (jnp.fft path), or 'auto' (dft for n <= 64).
-      precision: lax.Precision for the dft matmuls (None = backend default;
-              pass HIGHEST for certification-grade accuracy — on TPU the
-              default bf16 passes cost ~1e-2 abs error, HIGHEST ~1e-3).
+      impl:   'dft' (dense 2-D DFT-as-matmul), 'dft1' (factorised
+              rows-then-columns 1-D DFT matmuls — fewer FLOPs, see
+              apply_freq_matrices), 'fft' (jnp.fft path), or 'auto' (dft
+              for n <= 64).
+      precision: lax.Precision for the dft matmuls (None = backend default,
+              TF32 on the GPU; pass HIGHEST for certification-grade
+              accuracy).
 
     Returns:
       (batch, co, n, n); the semi-orthogonal per-frequency matrix has
       orthonormal columns, so the map is an isometry (Lipschitz 1).
 
-    TPU note: XLA's TPU FFT is both slow (a fraction of HBM bandwidth) and
-    low-precision at these tiny spatial sizes, so the default path evaluates
-    rfft2/irfft2 as ONE dense matmul each against precomputed (F, n*n) DFT
-    matrices — three large GEMMs on the MXU per layer (measured ~3x faster
-    than the fft path at batch 8192 on v5e).
+    The default path evaluates rfft2/irfft2 as ONE dense matmul each
+    against precomputed (F, n*n) DFT matrices — three large GEMMs per
+    layer.  That choice was measured on the earlier accelerator, whose FFT
+    was slow and imprecise at these sizes; it has not been re-measured
+    against cuFFT on the H100.
     """
     n = x.shape[-1]
     Q = cayley_conv_kernel(weight, alpha, n)
@@ -229,11 +229,11 @@ def apply_freq_matrices(
         # costs O(n^2) MACs per output frequency; splitting it into two 1-D
         # passes costs O(n), a ~7x FLOP cut on 32x32 layers.  Every pass is
         # a dot_general whose natural output order feeds the next one, so no
-        # large intermediate transposes are emitted.  Measured on v5e the
-        # extra HBM round trips and 32-deep contractions lose to the dense
-        # path's MXU-saturating GEMMs (99ms vs 59ms per 8k-batch KWLarge
-        # forward), so 'auto' keeps 'dft'; this path wins only where n is
-        # large enough that O(n^4) DFT matrices dominate.
+        # large intermediate transposes are emitted.  Its extra memory
+        # round trips and 32-deep contractions lost to the dense path's
+        # large GEMMs on the earlier accelerator, so 'auto' keeps 'dft';
+        # this path wins where n is large enough that O(n^4) DFT matrices
+        # dominate.
         D, Dh, Dinv, Einv = map(jnp.asarray, _dft1_mats(n))
 
         def dg(a, b, contract, batch=((), ())):

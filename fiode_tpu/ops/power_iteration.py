@@ -1,6 +1,6 @@
 """Spectral-norm estimation by power iteration (dense and convolutional).
 
-TPU-native rebuild of the reference's Lipschitz tracking
+JAX rebuild of the reference's Lipschitz tracking
 (FI-ODE utils.py:151-234): per-layer sigma_max estimates with warm-started
 singular vectors, multiplied through the backbone to obtain L_{f,x} for
 Lipschitz-aware kappa scheduling (pl_modules.py:437-445).

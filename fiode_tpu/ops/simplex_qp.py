@@ -8,7 +8,7 @@ Solves, per batch row, the box-and-budget projection
 whose KKT conditions reduce to a 1-D root-find in the dual variable mu:
 ``v(mu) = clip(nominal - mu, lower, upper)`` with ``sum(v(mu)) = 0``.
 ``sum(v(mu))`` is monotone non-increasing in mu, so mu is found by bisection
-with a fixed iteration count (branch-free, jit/vmap-friendly on TPU).
+with a fixed iteration count (branch-free, jit/vmap-friendly).
 
 The backward pass is the closed-form active-set Jacobian of the projection:
 with F = {i : lower_i < v_i < upper_i} the free set, the solution locally is
@@ -54,10 +54,10 @@ def _bisect_mu(sum_at, mu_lo, mu_hi, n_iter: int, unroll: bool = False):
     Returns the midpoint after ``n_iter`` halvings.  All shapes are (batch, 1).
 
     ``unroll=True`` flattens the loop into the surrounding graph so XLA fuses
-    all iterations into one elementwise kernel — on TPU the rolled loop pays
-    per-iteration while-op overhead that dominates at small batch*n (3x on
-    the certification sweep); leave rolled inside large traced programs where
-    compile time matters more.
+    all iterations into one elementwise kernel — the rolled loop pays
+    per-iteration while-op overhead that can dominate at small batch*n;
+    leave rolled inside large traced programs where compile time matters
+    more.
     """
 
     def body(_, carry):
@@ -108,8 +108,8 @@ def cone_project_mu_exact(lower, nominal):
     largest with ``w_(k) > mu_k`` (the standard simplex-projection rank
     rule, computed here with pairwise rank statistics instead of a sort —
     one parallel pass over a (..., n, n) mask instead of the 30-iteration
-    sequential bisection, whose value-dependency chain is what the TPU
-    VPU serializes on in the ODE RHS).
+    sequential bisection, whose value-dependency chain serializes the
+    ODE RHS).
 
     Ties broken by index so duplicated ``w`` values count once each.
     Accuracy: exact up to fp rounding, i.e. at or below the bisection's
@@ -147,8 +147,8 @@ def cone_project_mu_sort(lower, nominal):
     ``mu_k = (cs_k - s)/k`` and the optimum is the largest k with
     ``ws_k > mu_k`` (the valid set is a prefix, so k* = #valid).  One
     ``lax.sort`` + cumsum over the n-wide minor axis instead of the
-    (n, n) pairwise mask — which of the two lowers better on the TPU VPU
-    is an empirical question the bench A/B answers.
+    (n, n) pairwise mask — which of the two lowers better is an empirical
+    question the bench A/B answers.
     """
     w = nominal - lower
     s = -jnp.sum(lower, axis=-1, keepdims=True)

@@ -1,10 +1,10 @@
 """Device mesh and sharding helpers.
 
 The reference's only distributed strategy is single-node data parallelism
-(PyTorch-Lightning DDP over NCCL, sl_pipeline.py:163-165).  The TPU-native
-equivalent: a 1-D ``data`` mesh over the slice, batches sharded along it,
-parameters replicated, gradients/metrics mean-reduced by XLA all-reduce over
-ICI — all emitted automatically by jit from the shardings below.
+(PyTorch-Lightning DDP over NCCL, sl_pipeline.py:163-165).  The JAX
+equivalent: a 1-D ``data`` mesh over the cards, batches sharded along it,
+parameters replicated, gradients/metrics mean-reduced by XLA's all-reduce
+(NCCL on GPUs) — all emitted automatically by jit from the shardings below.
 
 For the tiny FI-ODE models no tensor/pipeline parallelism is warranted
 (SURVEY.md §2.5); the long axes worth sharding are the batch, the h-sample
@@ -35,10 +35,10 @@ def make_mesh2d(
     n_img: int, n_cell: int, axes: tuple = ("img", "cell")
 ) -> Mesh:
     """2-D mesh for certification sweeps: the image batch shards over the
-    first axis and the grid-cell axis over the second, so a pod partitions
-    both long dimensions of the (images x cells) superchunk.  Lay the cell
-    axis innermost (fastest-varying over adjacent devices) so the per-image
-    max all-reduce rides the shortest ICI ring."""
+    first axis and the grid-cell axis over the second, so the cards
+    partition both long dimensions of the (images x cells) superchunk; the
+    only collective is the per-image max over the cell axis.  NVLink joins
+    every card to every other, so the mesh follows the algorithm alone."""
     devs = np.asarray(jax.devices()[: n_img * n_cell]).reshape(n_img, n_cell)
     return Mesh(devs, axes)
 

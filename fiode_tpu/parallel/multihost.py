@@ -1,10 +1,10 @@
 """Multi-host (multi-process) bootstrap for SPMD runs.
 
 The reference's distributed story is single-node DDP (NCCL over one
-machine's GPUs, sl_pipeline.py:163-165).  The TPU-native equivalent spans
-hosts: every process owns a subset of the global devices, runs the SAME
-program, and XLA's collectives ride ICI/DCN.  JAX needs exactly two things
-from the framework for that:
+machine's GPUs, sl_pipeline.py:163-165).  The JAX equivalent spans hosts:
+every process owns a subset of the global devices, runs the SAME program,
+and XLA's collectives (NCCL on GPUs) cross processes and hosts.  JAX needs
+exactly two things from the framework for that:
 
 1. ``jax.distributed.initialize()`` before any other JAX call, so
    ``jax.devices()`` enumerates the GLOBAL device set (every mesh built by
@@ -21,10 +21,9 @@ pure index slice — no cross-process data exchange (the pattern of the
 scaling-book's data-parallel recipe).
 
 CLI: ``python -m fiode_tpu train --multihost ...`` on every process, with
-the standard JAX cluster-env variables set (auto-detected on TPU pods; on
-CPU/manual clusters set ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
-``JAX_PROCESS_ID``).  A 2-process CPU cluster is exercised end-to-end by
-tests/test_multihost.py.
+the coordinator given explicitly: set ``JAX_COORDINATOR_ADDRESS``,
+``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``.  A 2-process CPU cluster is
+exercised end-to-end by tests/test_multihost.py.
 """
 from __future__ import annotations
 
@@ -43,11 +42,10 @@ def bootstrap_multihost(
     """Initialize the JAX distributed runtime; returns (index, count).
 
     Must run before any other JAX API touches a backend.  With no
-    arguments the cluster shape comes from the environment: TPU pods
-    auto-detect; elsewhere JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID (the standard JAX variables) are honored.  Calling it
-    in a single-process setting (no env, no args) is a no-op returning
-    (0, 1) so ``--multihost`` scripts stay runnable standalone.
+    arguments the cluster shape comes from JAX_COORDINATOR_ADDRESS /
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID (the standard JAX variables).
+    Calling it in a single-process setting (no env, no args) is a no-op
+    returning (0, 1) so ``--multihost`` scripts stay runnable standalone.
     """
     import jax
 
@@ -59,11 +57,7 @@ def bootstrap_multihost(
     if process_id is None and os.environ.get("JAX_PROCESS_ID") is not None:
         process_id = int(os.environ["JAX_PROCESS_ID"])
 
-    on_tpu_pod = bool(
-        os.environ.get("TPU_WORKER_HOSTNAMES")
-        or os.environ.get("MEGASCALE_COORDINATOR_ADDRESS")
-    )
-    if coordinator_address or on_tpu_pod:
+    if coordinator_address:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,

@@ -9,7 +9,7 @@ Rebuild of dataset_loaders.py:18-136 without torchvision:
     train/val split; CIFAR val == test set (:66-94);
   * augmentation — random crop with 4-pixel padding + horizontal flip —
     applied on-device in the jitted train step (see ``augment_batch``), not
-    in host worker processes: the TPU-native replacement for the reference's
+    in host worker processes: the on-device replacement for the reference's
     torchvision transform + DataLoader-worker pipeline;
   * no normalisation here — it lives inside the model (models/layers.py
     Normalize) so attacks/certification act in [0,1] pixel space.

@@ -1,9 +1,12 @@
-"""Checkpointing: orbax save/restore with a best-metric policy.
+"""Checkpointing: host pytree save/restore with a best-metric policy.
 
 Rebuild of the reference's Lightning ModelCheckpoint behaviour
 (sl_pipeline.py:143-154): keep the single best checkpoint monitored on
-validation (adv) error, plus a 'last' for resume; raw pytree save/load for
-the non-Lightning paths (grids, control models — reference th.save usage).
+validation (adv) error, plus a 'last' for resume; the same raw pytree
+save/load serves the non-Lightning paths (grids, control models —
+reference th.save usage).  One format everywhere: the pytree with every
+leaf converted to a numpy array, pickled (``<name>.pkl``).  Only files
+this program wrote are loaded.
 """
 from __future__ import annotations
 
@@ -11,18 +14,10 @@ import json
 from pathlib import Path
 from typing import Optional
 
-import numpy as np
-
-try:
-    import orbax.checkpoint as ocp
-
-    _HAVE_ORBAX = True
-except Exception:  # pragma: no cover
-    _HAVE_ORBAX = False
-
 import pickle
 
 import jax
+import numpy as np
 
 __all__ = ["CheckpointManager", "save_pytree", "load_pytree"]
 
@@ -52,7 +47,7 @@ class CheckpointManager:
     """
 
     def __init__(self, run_dir: str, monitor: str = "validation_error",
-                 mode: str = "min", use_orbax: bool = True):
+                 mode: str = "min"):
         self.dir = Path(run_dir) / "ckpt"
         self.dir.mkdir(parents=True, exist_ok=True)
         self.monitor = monitor
@@ -66,27 +61,27 @@ class CheckpointManager:
                 self.best = float(json.loads(best_json.read_text())[monitor])
             except (KeyError, ValueError):
                 pass
-        self.use_orbax = use_orbax and _HAVE_ORBAX
-        if self.use_orbax:
-            self._ckptr = ocp.StandardCheckpointer()
 
     def _save(self, name: str, tree):
-        if self.use_orbax:
-            path = (self.dir / name).absolute()
-            if path.exists():
-                import shutil
-
-                shutil.rmtree(path)
-            self._ckptr.save(path, _to_host(tree))
-            self._ckptr.wait_until_finished()
-        else:
-            save_pytree(self.dir / (name + ".pkl"), tree)
+        save_pytree(self.dir / (name + ".pkl"), tree)
 
     def _load(self, name: str, like=None):
-        if self.use_orbax:
-            path = (self.dir / name).absolute()
-            return self._ckptr.restore(path, like)
-        return load_pytree(self.dir / (name + ".pkl"))
+        tree = load_pytree(self.dir / (name + ".pkl"))
+        if like is not None:
+            # the stored tree must be the one the caller expects: same
+            # paths, same leaf shapes
+            want = jax.tree_util.tree_structure(like)
+            got = jax.tree_util.tree_structure(tree)
+            if want != got:
+                raise ValueError(f"checkpoint {name}: tree {got} != {want}")
+            for a, b in zip(jax.tree_util.tree_leaves(tree),
+                            jax.tree_util.tree_leaves(like)):
+                if np.shape(a) != np.shape(b):
+                    raise ValueError(
+                        f"checkpoint {name}: leaf shape {np.shape(a)} != "
+                        f"{np.shape(b)}"
+                    )
+        return tree
 
     def save_last(self, tree, metrics: dict, step: int):
         self._save("last", tree)

@@ -7,7 +7,10 @@ stack (ExpConfig.py:13-408, configs/*.yaml) without the hydra dependency.
     module/init_fun/param_map, module/output) holding named dict nodes;
   * YAML files with a ``defaults:`` list composed in order (including the
     reference's multi-instance ``group@path.key: Option`` syntax for
-    sampler/scheduler lists);
+    sampler/scheduler lists), read by ``parse_yaml``: the subset of YAML
+    that configs/ uses (block mappings and sequences, flow ``{}``/``[]``
+    collections, plain and quoted scalars, comments) on the standard
+    library alone;
   * CLI overrides ``key.path=value`` / ``+group=option`` / ``++key=value``
     (hydra-compatible spelling);
   * ``${a.b.c}`` interpolation resolved after composition (the role of
@@ -20,9 +23,9 @@ import re
 from pathlib import Path
 from typing import Dict, List, Optional
 
-import yaml
-
-__all__ = ["ConfigStore", "compose", "parse_overrides", "resolve"]
+__all__ = [
+    "ConfigStore", "compose", "parse_overrides", "parse_yaml", "resolve",
+]
 
 
 # ---------------------------------------------------------------------------
@@ -240,20 +243,131 @@ def resolve(cfg: dict, root: Optional[dict] = None):
     return cfg
 
 
-_FLOATY = re.compile(r"^[+-]?(\d+\.?\d*|\.\d+)[eE][+-]?\d+$")
+# ---------------------------------------------------------------------------
+# YAML subset
+# ---------------------------------------------------------------------------
+
+_INT = re.compile(r"^[+-]?\d+$")
+_FLOAT = re.compile(r"^[+-]?(\d+\.?\d*|\.\d+)([eE][+-]?\d+)?$")
+_CONSTANTS = {"true": True, "True": True, "false": False, "False": False,
+              "null": None, "Null": None, "~": None, "": None}
 
 
-def _parse_value(v: str):
-    out = yaml.safe_load(v)
-    # YAML 1.1 does not treat '1e-4' as a float; hydra/CLI users expect it to
-    if isinstance(out, str) and _FLOATY.match(out):
-        return float(out)
+def _scalar(tok: str):
+    """A plain or quoted YAML scalar.  '1e-4' reads as a float, as CLI
+    users expect (YAML 1.1 would leave it a string)."""
+    tok = tok.strip()
+    if len(tok) >= 2 and tok[0] == tok[-1] and tok[0] in "'\"":
+        return tok[1:-1]
+    if tok in _CONSTANTS:
+        return _CONSTANTS[tok]
+    if _INT.match(tok):
+        return int(tok)
+    if _FLOAT.match(tok):
+        return float(tok)
+    return tok
+
+
+def _flow(text: str, i: int = 0):
+    """Parse one flow value starting at ``text[i]``; returns (value, end)."""
+    while i < len(text) and text[i] == " ":
+        i += 1
+    if i < len(text) and text[i] in "[{":
+        close = "]" if text[i] == "[" else "}"
+        items, i = [], i + 1
+        while True:
+            while i < len(text) and text[i] == " ":
+                i += 1
+            if i >= len(text):
+                raise ValueError(f"unclosed {text[i - 1]!r} in {text!r}")
+            if text[i] == close:
+                i += 1
+                break
+            if close == "}":
+                key, i = _flow(text, i)
+                if i >= len(text) or text[i] != ":":
+                    raise ValueError(f"expected ':' in {text!r}")
+                val, i = _flow(text, i + 1)
+                items.append((key, val))
+            else:
+                val, i = _flow(text, i)
+                items.append(val)
+            while i < len(text) and text[i] == " ":
+                i += 1
+            if i < len(text) and text[i] == ",":
+                i += 1
+        return (dict(items) if close == "}" else items), i
+    if i < len(text) and text[i] in "'\"":
+        j = text.index(text[i], i + 1)
+        return text[i + 1 : j], j + 1
+    j = i
+    while j < len(text) and text[j] not in ",]}" and not (
+        text[j] == ":" and (j + 1 == len(text) or text[j + 1] == " ")
+    ):
+        j += 1
+    return _scalar(text[i:j]), j
+
+
+def _parse_value(text: str):
+    val, end = _flow(text)
+    if text[end:].strip():
+        raise ValueError(f"trailing characters in YAML value {text!r}")
+    return val
+
+
+def _strip_comment(line: str) -> str:
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] == " "):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+def parse_yaml(text: str):
+    """Parse the YAML subset the config files use: nested block mappings
+    (``key: value`` / ``key:`` + indented block), block sequences
+    (``- value``), flow collections, scalars and ``#`` comments."""
+    lines = [(len(l) - len(l.lstrip(" ")), l.strip())
+             for l in map(_strip_comment, text.splitlines()) if l.strip()]
+
+    def block(pos, indent):
+        if lines[pos][1].startswith("- ") or lines[pos][1] == "-":
+            out = []
+            while pos < len(lines) and lines[pos][0] == indent \
+                    and lines[pos][1].startswith("-"):
+                out.append(_parse_value(lines[pos][1][1:]))
+                pos += 1
+            return out, pos
+        out = {}
+        while pos < len(lines) and lines[pos][0] == indent:
+            key, rest = _flow(lines[pos][1])
+            if not lines[pos][1][rest:].startswith(":"):
+                raise ValueError(f"expected 'key: value': {lines[pos][1]!r}")
+            rest = lines[pos][1][rest + 1 :].strip()
+            pos += 1
+            if rest:
+                out[key] = _parse_value(rest)
+            elif pos < len(lines) and lines[pos][0] > indent:
+                out[key], pos = block(pos, lines[pos][0])
+            else:
+                out[key] = None
+        return out, pos
+
+    if not lines:
+        return None
+    out, pos = block(0, lines[0][0])
+    if pos != len(lines):
+        raise ValueError(f"bad indentation at {lines[pos][1]!r}")
     return out
 
 
 def parse_overrides(args: List[str]):
     """hydra-style: 'a.b=v' (set), '+group=Option' (add default),
-    '++a.b=v' (force set).  Values parsed as YAML scalars."""
+    '++a.b=v' (force set).  Values parsed as YAML flow values."""
     sets, adds = [], []
     for a in args:
         if "=" not in a:
@@ -280,7 +394,7 @@ def compose(
         path = Path(config_dir or ".") / config_file
         if not path.suffix:
             path = path.with_suffix(".yaml")
-        raw = yaml.safe_load(path.read_text()) or {}
+        raw = parse_yaml(path.read_text()) or {}
     adds, sets = parse_overrides(overrides or [])
     defaults = list(raw.pop("defaults", []))
     for group, option in adds:

@@ -22,8 +22,8 @@ __all__ = ["set_debug", "trace", "step_timer", "env_flag"]
 
 
 def env_flag(name: str) -> bool:
-    """Shared truthy-env-var parser for feature gates (FIODE_FUSED,
-    FIODE_FUSED_CONV, ...) so the accepted spellings cannot drift."""
+    """Shared truthy-env-var parser for feature gates (FIODE_QP_UNROLL,
+    ...) so the accepted spellings cannot drift."""
     return os.environ.get(name, "").lower() in ("1", "true", "yes")
 
 

@@ -8,7 +8,7 @@ under an Linf perturbation of eta with x fixed
 (certify_crown.py:108-139, BoundedModule/BoundedTensor/PerturbationLpNorm).
 
 Everything is batched over grid cells (leading axis) — the backward passes
-are einsums that map straight onto the MXU, replacing the reference's
+are einsums that map straight onto the matmul units, replacing the reference's
 image-outer/grid-inner Python loop with one vectorised sweep.
 
 Algorithm (standard CROWN):
@@ -93,9 +93,9 @@ def _backward_from(
         #     W_pos u + W_neg l = [W (u + l) + |W| (u - l)] / 2
         # into two contractions whose intermediates are (N, k, in) with the
         # 128-wide ``in`` axis minor — instead of materialising the
-        # sign-split broadcast (N, out, in) form (a 128x128-per-cell HBM
-        # intermediate) or an (N, in, k) tensor whose k~10 minor axis pads
-        # to 128 TPU lanes.
+        # sign-split broadcast (N, out, in) form (a 128x128-per-cell
+        # device-memory intermediate) or an (N, in, k) tensor with a k~10
+        # minor axis.
         a_up, b_up, a_lo, b_lo = relax[0]
         W1, b1 = Ws[0], bs[0]
         b1_row = b1 + x_bias  # (N, in)

@@ -85,7 +85,7 @@ def _lips_kernels(cert):
     located — identical math to Certifier._make_lips_chunk's ``one``
     before its max reduction.  ``box_step_fn`` fuses the per-box bound
     from the module docstring with its half-width-gradient split dim
-    (relay transfers dominate — see refine._kernels).  The x_bias slot of
+    (one dispatch per round — see refine._kernels).  The x_bias slot of
     the shared _bab driver carries the image's backbone features.
     """
     params = cert.params

@@ -86,3 +86,60 @@ class TestExperimentBuild:
         ]
         assert any("training_loss" in r for r in recs)
         assert (tmp_path / "run" / "ckpt").exists()
+
+
+class TestYamlSubset:
+    """configs/ are read by the standard library alone."""
+
+    def test_parse_yaml_constructs(self):
+        from fiode_tpu.utils.config import parse_yaml
+
+        text = (
+            "# comment\n"
+            "defaults:\n"
+            "  - {module: Lyapunov}\n"
+            "  - {\"\": default}\n"
+            "a:\n"
+            "  b: 1.0e-3   # trailing comment\n"
+            "  c: [1.0, 2]\n"
+            "  d: {rate: -0.02, clamp: min}\n"
+            "  e:\n"
+            "    f: true\n"
+            "norm: \"2\"\n"
+            "g: null\n"
+            "h: text with spaces\n"
+        )
+        assert parse_yaml(text) == {
+            "defaults": [{"module": "Lyapunov"}, {"": "default"}],
+            "a": {"b": 1e-3, "c": [1.0, 2],
+                  "d": {"rate": -0.02, "clamp": "min"}, "e": {"f": True}},
+            "norm": "2", "g": None, "h": "text with spaces",
+        }
+
+    def test_override_values(self):
+        _, sets = parse_overrides(
+            ["a=1e-4", "b=[2,2]", "c=true", "d=TinyMLP", "e='x y'", "f=3"]
+        )
+        assert sets == [("a", 1e-4), ("b", [2, 2]), ("c", True),
+                        ("d", "TinyMLP"), ("e", "x y"), ("f", 3)]
+
+    @pytest.mark.parametrize("name,kind", [
+        ("cifar_train.yaml", "classification"),
+        ("mnist_train.yaml", "classification"),
+        ("cifar_certify.yaml", "certify"),
+        ("mnist_certify.yaml", "certify"),
+    ])
+    def test_compose_without_pyyaml(self, name, kind):
+        import subprocess
+        import sys
+
+        code = (
+            "import sys; sys.modules['yaml'] = None\n"
+            "from fiode_tpu.utils.config import compose\n"
+            f"cfg = compose({name!r}, ['++T=6'], {str(REPO / 'configs' / kind)!r})\n"
+            "assert cfg['dataset']['N_CLASSES'] == 10 and cfg['T'] == 6\n"
+            "assert cfg['module']['dynamics']['mlp_size'] == 128\n"
+        )
+        r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode == 0, r.stderr

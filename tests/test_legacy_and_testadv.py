@@ -17,14 +17,14 @@ class TestLegacyConvDynamics:
         dyn = ConvBlockDynamics(features=8)
         x = jax.random.uniform(jax.random.PRNGKey(0), (2, 3, 8, 8))
         h0_shape = (2, 8, 8, 8)
-        variables = dyn.init(
+        params = dyn.init(
             jax.random.PRNGKey(1), jnp.zeros(h0_shape), x,
         )
 
         def f(t, h, args):
-            return dyn.apply(variables, h, x)
+            return dyn.apply(params, h, x)
 
-        h0 = dyn.apply(variables, x, method=dyn.state_init)
+        h0 = dyn.state_init(params, x)
         assert h0.shape == h0_shape
         sol = jax.jit(
             lambda h0: odeint(

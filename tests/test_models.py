@@ -44,7 +44,7 @@ class TestCayley:
         np.testing.assert_allclose(ny, nx, rtol=1e-4)
 
     def test_cayley_conv_dft_matches_fft(self):
-        # the MXU DFT-matmul path must agree with the fft reference path in
+        # the DFT-matmul path must agree with the fft reference path in
         # value and gradient, including odd spatial sizes and both channel
         # orientations (libs/ortho_conv semi-orthogonal construction)
         from fiode_tpu.ops.cayley import cayley_conv_apply

@@ -3,9 +3,9 @@ data mesh with no resharding of the cell-local work.
 
 The reference certifies on one GPU with Python loops over grid batches
 (certify_crown.py:122-153); here the cell axis is a sharded operand of one
-jitted program, so a v5e-8 slice certifies 8 chunks concurrently and the
-only communication is the final per-image max reduction (an all-reduce
-over ICI).  These tests pin (a) exact agreement between the sharded and
+jitted program, so the cards certify their chunks concurrently and the
+only communication is the final per-image max reduction (an
+all-reduce).  These tests pin (a) exact agreement between the sharded and
 replicated sweeps and (b) that GSPMD keeps the cell axis partitioned —
 no all-gather of cell-sized tensors appears in the compiled HLO."""
 import jax

@@ -60,7 +60,7 @@ class TestLipsTrain:
         bb = PlainCNNBackbone(arch="4C3F", out_dim=10, act="ReLU",
                               mu=(0.5,) * 3, std=(0.25,) * 3)
         x = jax.random.uniform(jax.random.PRNGKey(0), (4, 3, 32, 32))
-        params = bb.init(jax.random.PRNGKey(1), x)["params"]
+        params = bb.init(jax.random.PRNGKey(1), x)
         us = lfx_init(bb, params, (3, 32, 32), jax.random.PRNGKey(2))
         Lfx, us = jax.jit(
             lambda p, u: compute_lfx(bb, p, u, (3, 32, 32), n_iter=30)
@@ -68,7 +68,7 @@ class TestLipsTrain:
         Lfx = float(Lfx)
         assert Lfx > 0
         # empirical check: |f(x+d)-f(x)| <= (Lfx / min std) |d|
-        f = lambda x: bb.apply({"params": params}, x)
+        f = lambda x: bb.apply(params, x)
         d = 1e-3 * jax.random.normal(jax.random.PRNGKey(3), x.shape)
         num = float(jnp.linalg.norm(f(x + d) - f(x)))
         den = float(jnp.linalg.norm(d))

@@ -144,7 +144,7 @@ class TestTrainer:
         """After epoch_off_scale, validation must integrate the UNRESCALED
         field the phase trains (the reference mutates
         dyn_fun.scale_nominal permanently, pl_modules.py:391-393) — not the
-        flax module's static constructor flag."""
+        dynamics module's static constructor flag."""
         tr = make_trainer(tmp_path, epoch_off_scale=0)  # off from epoch 0
         params = tr.fit(epochs=1)
         assert tr._phase_scale_nominal is False

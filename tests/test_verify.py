@@ -285,6 +285,23 @@ class TestIbpQp:
         assert v == pytest.approx(1.0 + 2.0)
 
 
+def _eqns(jaxpr):
+    """Every equation of a jaxpr, sub-jaxprs (jit, loops) included."""
+    out = []
+    for e in jaxpr.eqns:
+        out.append(e)
+        for v in e.params.values():
+            sub = getattr(v, "jaxpr", None)
+            if sub is not None:
+                out.extend(_eqns(getattr(sub, "jaxpr", sub)))
+            elif isinstance(v, (tuple, list)):
+                for b in v:
+                    sub = getattr(b, "jaxpr", None)
+                    if sub is not None:
+                        out.extend(_eqns(getattr(sub, "jaxpr", sub)))
+    return out
+
+
 class TestCertifierEndToEnd:
     def _make(self, tmp_path):
         n, x_dim = 3, 6
@@ -300,6 +317,38 @@ class TestCertifierEndToEnd:
         x = jax.random.uniform(jax.random.PRNGKey(0), (6, 1, 8, 8))
         params = model.init(jax.random.PRNGKey(1), x)
         return model, params, x
+
+    def test_worst_values_match_verdicts(self, tmp_path):
+        model, params, x = self._make(tmp_path)
+        y = np.asarray([0, 1, 2, 0, 1, 2])
+        cert = Certifier(model, params, T=8, eps_input=0.1, chunk=64)
+        res = cert.certify(np.asarray(x), y, method="crown",
+                           early_exit=False)
+        assert np.isnan(res.worst[~res.clean]).all()
+        clean = res.worst[res.clean]
+        np.testing.assert_array_equal(clean <= 0, res.certified[res.clean])
+
+    def test_clean_check_and_features_pin_float32(self, tmp_path):
+        # the certificate starts from features computed at the certifier's
+        # precision, not at the backend default (TF32 on a GPU)
+        model, params, x = self._make(tmp_path)
+        cert = Certifier(model, params, T=4, eps_input=0.1, chunk=64)
+        for fn in (cert._features, cert._predict):
+            jaxpr = jax.make_jaxpr(fn)(params, x)
+            precs = [str(e.params["precision"]) for e in _eqns(jaxpr.jaxpr)
+                     if e.primitive.name == "dot_general"]
+            assert precs and all("HIGHEST" in p for p in precs), precs
+
+    @pytest.mark.gpu
+    def test_features_on_card_match_cpu_float32(self, gpu, tmp_path):
+        model, params, x = self._make(tmp_path)
+        cert = Certifier(model, params, T=4, eps_input=0.1, chunk=64)
+        got = cert._features(params, x)
+        cpu = jax.devices("cpu")[0]
+        with jax.default_device(cpu), jax.default_matmul_precision("highest"):
+            want = jax.jit(model.features)(*jax.device_put((params, x), cpu))
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   atol=1e-5)
 
     def test_certify_runs_and_is_consistent(self, tmp_path):
         model, params, x = self._make(tmp_path)
